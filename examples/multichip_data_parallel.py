@@ -1,6 +1,6 @@
-"""Multi-chip data-parallel training demo.
+"""Multi-device data-parallel training demo.
 
-The TPU replacement for the reference's thread-replica data parallelism
+The replacement for the reference's thread-replica data parallelism
 (``tests/test_SMP_omega_multithreads.cpp``): shard the molecule batch over a
 device mesh, psum gradients, one optimizer step — all one SPMD program.
 

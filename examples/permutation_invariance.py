@@ -1,6 +1,6 @@
 """Permutation-invariance property demo.
 
-The TPU twin of ``tests/test_graph_permutation_invariant.cpp``: graph-level
+The twin of ``tests/test_graph_permutation_invariant.cpp``: graph-level
 ``Feature()`` embeddings must be invariant under vertex relabeling (the
 defining property of the Covariant Compositional Network construction).
 

@@ -1,6 +1,6 @@
 """SMP_omega toy-molecule training demo.
 
-The TPU twin of the reference's flagship demo
+The twin of the reference's flagship demo
 (``tests/test_SMP_omega.cpp:149-210``): train second-order steerable message
 passing on CH4/NH3/H2O/C2H4 with regression target = number of atoms, then
 save/load the model and predict.

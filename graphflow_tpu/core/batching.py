@@ -2,10 +2,10 @@
 
 The reference trains one molecule at a time on a rebuilt computation graph
 (``SMP_omega.h:798-824``); its batch dimension is a CPU thread / CUDA stream
-per replica.  On TPU the batch dimension is just a leading array axis: graphs
+per replica.  Here the batch dimension is just a leading array axis: graphs
 are padded to common (max_nVertices, max_receptive_field) shapes by
 ``prepare_graph`` and stacked here, so one jitted, vmapped step covers the
-whole minibatch and XLA maps it onto the MXU.
+whole minibatch in one XLA program.
 """
 
 from __future__ import annotations

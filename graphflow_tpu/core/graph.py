@@ -1,6 +1,6 @@
 """Host-side graph container (the L5 "graph data" layer).
 
-TPU-native equivalent of the reference's ``GraphFlow/DenseGraph.h``: a plain
+The equivalent of the reference's ``GraphFlow/DenseGraph.h``: a plain
 NumPy container holding adjacency, vertex features and the optional Coulomb /
 distance matrices used by the physics model variants, plus the Kipf-Welling
 normalized adjacency (reference ``DenseGraph.h:69-111``).

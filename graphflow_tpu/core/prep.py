@@ -7,7 +7,7 @@ depth-bucketed features (``:382-404``), vertex ranking (``:418-434``),
 receptive-field construction with capping (``:476-582``), permutation
 matrices and reduced adjacency.
 
-TPU-native design: all of this is *data preparation*, not differentiable
+Design: all of this is *data preparation*, not differentiable
 compute, so it runs on host as NumPy and emits **static-shaped index arrays**.
 The dense permutation matrices X[v][w] of the reference become integer gather
 indices (``pos``), and "multiply by a permutation matrix" on device becomes a

@@ -11,8 +11,8 @@ jitted batched train step (trace once, run for every molecule).
 
 ``Threaded_BatchLearn`` is an alias of ``BatchLearn``: the reference's
 CPU-thread data parallelism (``SMP_omega.h:750-792``) replicates the model
-per thread and sums gradients; on TPU the batch axis is vmapped inside one
-XLA program, and multi-chip DP is handled by ``graphflow_tpu.parallel``.
+per thread and sums gradients; here the batch axis is vmapped inside one
+XLA program, and multi-device DP is handled by ``graphflow_tpu.parallel``.
 """
 
 from __future__ import annotations
@@ -147,8 +147,8 @@ class GraphModel:
                 learning_rate, nIterations, epsilon=epsilon, nBatch=n)
         return loss0, loss1
 
-    # The reference's CPU-thread DP: on TPU a vmapped batch inside one XLA
-    # program already uses all cores of the chip; multi-chip DP lives in
+    # The reference's CPU-thread DP: a vmapped batch inside one XLA
+    # program already fills the device; multi-device DP lives in
     # graphflow_tpu.parallel.  Kept for API parity.
     Threaded_BatchLearn = BatchLearn
 

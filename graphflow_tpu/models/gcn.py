@@ -16,7 +16,7 @@ Covers the reference models:
   GCN_MW                        (``GCN_MW.h:209-221``) — Kipf-Welling GCN:
       hidden_l = LeakyReLU(norm_adj @ hidden_{l-1} @ W_l), SumRows head.
 
-TPU-native design: neighborhood aggregation is one masked matmul per level
+Design: neighborhood aggregation is one masked matmul per level
 (M_l @ hidden) where M_l[v, u] = [sp(v, u) <= min(l, R)]; the 2nd/3rd-order
 RisiLayer products use the closed forms from ``graphflow_tpu.ops.reductions``
 vectorized over vertices, so nothing exceeds O(V^2 H + V H^3) per level.

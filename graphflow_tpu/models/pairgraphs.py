@@ -234,10 +234,10 @@ class SMPPairGraphs(PairGraphModel):
     def _prepare_2(self, graph):
         return self._prepare_cfg(graph, self.cfg2)
 
-    def _forward(self, params, g1, g2, case_mask=None, training=False):
+    def _forward(self, params, g1, g2, case_mask=None):
         if self.order == 2:
             feats_fn = lambda p, g, c: smp2d_level_features(
-                p, g, c, case_mask=case_mask, training=training)
+                p, g, c, case_mask=case_mask)
         else:
             feats_fn = smp1d_level_features
         f1 = feats_fn(params["tower1"], g1, self.cfg1)  # list of [C_l]
@@ -252,8 +252,7 @@ class SMPPairGraphs(PairGraphModel):
 
     def _loss(self, params, g1, g2, target, case_mask=None):
         return losses.squared_loss(
-            self._forward(params, g1, g2, case_mask=case_mask,
-                          training=True), target)
+            self._forward(params, g1, g2, case_mask=case_mask), target)
 
 
 def SMP_omega_pairgraphs(max_nVertices_1, max_nVertices_2,

@@ -101,10 +101,9 @@ class SMPPhysics(GraphModel):
             self.cfg.max_receptive_field, 0, has_WL_ordering=False,
             use_wl_features=False, use_coulomb=self.use_coulomb)
 
-    def _forward(self, params, g, training=False):
+    def _forward(self, params, g):
         if self.order == 2:
-            feats = smp2d_level_features(params["tower"], g, self.cfg,
-                                         training=training)
+            feats = smp2d_level_features(params["tower"], g, self.cfg)
         else:
             feats = smp1d_level_features(params["tower"], g, self.cfg)
         gf = jnp.concatenate(feats)
@@ -112,7 +111,7 @@ class SMPPhysics(GraphModel):
         return jnp.dot(hidden, params["W2"]), gf
 
     def _loss(self, params, g, target):
-        pred, _ = self._forward(params, g, training=True)
+        pred, _ = self._forward(params, g)
         return losses.squared_loss(pred, target)
 
 

@@ -6,7 +6,7 @@ pool_l = mean(h_0..h_l), logits_l = theta @ pool_l, LogLoss per step),
 per-tensor L1 gradient clipping at 1.0 (``LSTM.h:72-78``), Momentum, and a
 keep-best backtracking Learn loop (``LSTM.h:97-144``).
 
-TPU-native: the unrolled per-level graph becomes one ``lax.scan``; the whole
+Design: the unrolled per-level graph becomes one ``lax.scan``; the whole
 (sequence, targets) pair trains in a single jitted program.
 """
 

@@ -29,7 +29,7 @@ The steerable structure lets every filter apply collapse to closed forms —
 W[s] (*) q = lambda1 (.) q + lambda2 (.) (rowsum broadcast) — so no dense
 filter tensors are materialized on device.
 
-TPU-native neighbor aggregation is the second-order analog of smp1d's
+The neighbor aggregation is the second-order analog of smp1d's
 vertex-id-space matmul: states are scattered to G[w, u1, u2, c], the 1-hop
 sum becomes one einsum over w, and results are gathered into each phi's
 local ordering with the sentinel convention.
@@ -38,6 +38,7 @@ local ordering with the sentinel convention.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import jax
@@ -174,12 +175,18 @@ def init_params(key, cfg: SMP2DSteerableConfig):
     return params
 
 
+# Every einsum of the neighbor sum has a 0/1 selection or adjacency
+# operand: HIGHEST keeps its f32 sums exact where the default precision
+# may round the values to TF32 on the GPU.
+_ein = functools.partial(jnp.einsum, precision=jax.lax.Precision.HIGHEST)
+
+
 def _qsum_block(state_b, selp_b, adj_b):
     """Id-space scatter + adjacency contraction for one block of source
     vertices: returns sum_{w in block} adj[:, w] (.) (X_w f_w X_w^T)."""
-    G = jnp.einsum("wqu,wqrc->wurc", selp_b, state_b)      # [B, V, Pp, C]
-    G = jnp.einsum("wrt,wurc->wutc", selp_b, G)            # [B, V, V, C]
-    return jnp.einsum("vw,wxyc->vxyc", adj_b, G)           # [V, V, V, C]
+    G = _ein("wqu,wqrc->wurc", selp_b, state_b)            # [B, V, Pp, C]
+    G = _ein("wrt,wurc->wutc", selp_b, G)                  # [B, V, V, C]
+    return _ein("vw,wxyc->vxyc", adj_b, G)                 # [V, V, V, C]
 
 
 def _neighbor_quadratic_sum(state, vid_prev, adj1, vid_cur, V, Pp, C,
@@ -200,8 +207,7 @@ def _neighbor_quadratic_sum(state, vid_prev, adj1, vid_cur, V, Pp, C,
     the call site) so the backward pass stores only the level inputs.
     """
     # Scatter to vertex-id space via one-hot matmuls (sentinel V falls
-    # outside the iota range -> zero selector row; TPU scatters/gathers are
-    # far slower than MXU matmuls, see smp2d._gather_neighbor_tensors).
+    # outside the iota range -> zero selector row).
     dt = state.dtype
     selp = (vid_prev[:, :, None] == jnp.arange(V)).astype(dt)   # [V, Pp, V]
     while V % block:
@@ -221,11 +227,8 @@ def _neighbor_quadratic_sum(state, vid_prev, adj1, vid_cur, V, Pp, C,
         M, _ = jax.lax.scan(body, jnp.zeros((V, V, V, C), dt), xs)
     # Gather into phi_l(v)'s ordering (one-hot matmuls).
     selc = (vid_cur[:, :, None] == jnp.arange(V)).astype(dt)    # [V, Pp, V]
-    out = jnp.einsum("vpx,vxyc->vpyc", selc, M)
-    return jnp.einsum("vqy,vpyc->vpqc", selc, out)              # [V, Pp, Pp, C]
-
-
-import functools
+    out = _ein("vpx,vxyc->vpyc", selc, M)
+    return _ein("vqy,vpyc->vpqc", selc, out)                    # [V, Pp, Pp, C]
 
 
 @functools.lru_cache(maxsize=32)

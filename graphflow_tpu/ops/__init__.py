@@ -1,4 +1,4 @@
-"""Differentiable op library (L2/L3): the TPU equivalents of the reference's
+"""Differentiable op library (L2/L3): the JAX equivalents of the reference's
 ~70 op headers.  See SURVEY.md 2.3-2.4 for the full inventory mapping."""
 
 from graphflow_tpu.ops.activations import (

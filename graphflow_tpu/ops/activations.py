@@ -55,7 +55,7 @@ def softmax(x, axis: int = -1):
     reproducing them is what makes end-to-end training dynamics match
     (caught by the round-5 dataset closure: with the true VJP, GCN_1D's
     float64 loss curve forks from the reference geometrically from
-    iteration ~6 — DATASET_r05.json).  Use :func:`softmax_exact` for the
+    iteration ~6, tools/dataset_closure.py).  Use :func:`softmax_exact` for the
     true gradient."""
     return jax.nn.softmax(x, axis=axis)
 

@@ -14,10 +14,10 @@ Reference implementations (scalar loops / CUDA gather kernels):
   RisiContraction_50.h:94-...  (all 50 index-partition patterns)
   RisiContraction_18_gpu.h     (CUDA gather formulation)
 
-TPU-native design: every case collapses to an einsum over a small set of
+Design: every case collapses to an einsum over a small set of
 *shared reductions* of T and A.  This removes the |E| factor from the
 reference's scatter loops — the whole 18-case bank costs O(N^3 C) instead of
-O(|E| N^3 C) — and lands on the MXU/VPU as a handful of fused contractions.
+O(|E| N^3 C) — and compiles to a handful of fused contractions.
 The generic case-table engine below is the executable specification (used by
 the parity tests); `risi_contraction_18` is the hand-optimized production
 path with shared reductions.
@@ -122,7 +122,7 @@ def _shared_reductions(T, A):
     Mirrors :func:`risi_contraction_18`'s decomposition, completed for the
     full index-partition table (``RisiContraction_50.h:94-431``): every
     case becomes a scalar*slab, a vector outer product u[x]*v[y], or one
-    [N,N,C]x[N,N] matmul — O(N^3 C) total, MXU-friendly, no |E| factor.
+    [N,N,C]x[N,N] matmul — O(N^3 C) total, no |E| factor.
     """
     S = A.sum()
     R = A.sum(axis=1)                       # [d]
@@ -270,15 +270,14 @@ def risi_contraction_18(T, A):
     Decomposition: with Ap = A * (A > 0),
       S = sum Ap, R[d] = sum_e Ap[d,e], trA = tr Ap,
       and the T-reductions below, every case is a (broadcast) outer product
-      or a single small matmul — O(N^3 C) total work, MXU-friendly.
+      or a single small matmul — O(N^3 C) total work.
     """
     Ap = jnp.where(A > 0, A, jnp.zeros_like(A))
     S = Ap.sum()
     R = Ap.sum(axis=1)                       # [N]
     trA = jnp.trace(Ap)
-    # f32 (or wider) accumulation: hits the native MXU bf16xbf16->f32 path
-    # for bf16 states (~6x faster than plain bf16 einsum on TPU, measured)
-    # and costs nothing for f32/f64.
+    # f32 (or wider) accumulation: bf16 states take the bf16 x bf16 -> f32
+    # tensor-core path, and f32/f64 are unchanged.
     acc_t = jnp.promote_types(T.dtype, jnp.float32)
     ein = functools.partial(jnp.einsum, preferred_element_type=acc_t)
     cast = lambda x: x.astype(T.dtype)

@@ -2,7 +2,7 @@
 
 Layout convention follows the reference Tensor3D: images are [H, W, C]
 (depth last).  Internally a singleton batch axis is added so XLA's fused
-convolution kernels (MXU path) are used; callers can also pass [N, H, W, C]
+convolution kernels (cuDNN on the GPU) are used; callers can also pass [N, H, W, C]
 batches directly.
 """
 

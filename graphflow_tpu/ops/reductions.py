@@ -85,7 +85,7 @@ def stack_tensor3d(ts):
     """``StackTensor3D.h`` (+``_thread``): N x [R, C, D] -> [N, R, C, D].
 
     The reference's per-row CPU threads (``StackTensor3D_thread.h:95-117``)
-    are unnecessary on TPU: stacking is a layout no-op for XLA.
+    are unnecessary: stacking is a layout no-op for XLA.
     """
     return jnp.stack(ts, axis=0) if isinstance(ts, (list, tuple)) else ts
 

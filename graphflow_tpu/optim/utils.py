@@ -1,6 +1,6 @@
 """Training utilities: gradient accumulation, parameter snapshots, init.
 
-TPU equivalents of ``SumGradients.h`` (accumulate grads across per-example
+JAX equivalents of ``SumGradients.h`` (accumulate grads across per-example
 passes), ``CacheParameters.h`` (snapshot/restore for backtracking line
 search), and the engine's init helpers (``GraphFlow.h:1280-1328``).
 """

@@ -1,13 +1,13 @@
-"""Multi-chip data parallelism via shard_map + psum.
+"""Multi-device data parallelism via shard_map + psum.
 
-TPU-native replacement for the reference's thread-replica data parallelism
+The replacement for the reference's thread-replica data parallelism
 (``SMP_omega.h:750-792`` Threaded_BatchLearn: copy params to replicas, one
 molecule per thread, serial gradient sum, single optimizer step) and its GPU
 multi-stream variant (``SMP_omega_gpu_multistreams.h:131-135,754-807``):
 
   replica broadcast   -> parameters replicated over the mesh (P())
   thread-per-molecule -> batch axis sharded over "data" (P("data"))
-  serial gradient sum -> jax.lax.psum over ICI
+  serial gradient sum -> jax.lax.psum (an NCCL all-reduce on GPUs)
   join barrier        -> implicit in SPMD program order
 
 The whole step — per-shard forward/backward, gradient all-reduce, optimizer
@@ -39,8 +39,8 @@ def make_dp_train_step(per_example_loss: Callable[[Any, Any, Any], jnp.ndarray],
     (params, opt_state, total_loss) with params/state replicated.
 
     ``axis`` may be a tuple of mesh axis names — e.g. ``("host", "data")``
-    on a hybrid DCN x ICI mesh (``mesh.make_hybrid_mesh``), which shards the
-    batch over both and psums gradients across hosts AND chips.
+    on a host x card mesh (``mesh.make_hybrid_mesh``), which shards the
+    batch over both and psums gradients across hosts AND cards.
     """
 
     def shard_loss(params, batch):
@@ -57,8 +57,7 @@ def make_dp_train_step(per_example_loss: Callable[[Any, Any, Any], jnp.ndarray],
         per_shard, mesh=mesh,
         in_specs=(P(), P(axis)),
         out_specs=(P(), P()),
-        # Pallas calls inside the loss don't annotate vma on their
-        # out_shapes; skip the varying-mesh-axes check.
+        # The loss is a per-shard partial; gradients are psummed by hand.
         check_vma=False,
     )
 

@@ -1,20 +1,20 @@
 """Device mesh helpers + multi-host scaffolding.
 
 The reference's maximum parallel scope is CPU threads + one GPU with streams
-(SURVEY.md section 2.8); the TPU framework scales instead via named meshes and
-collectives.  Axis conventions:
+(SURVEY.md section 2.8); this framework scales instead via named meshes and
+collectives, which XLA hands to NCCL.  Axis conventions:
 
-  "host"  — DCN (data-center network) axis across hosts/slices: slow,
-            high-latency; only gradient psums should cross it
+  "host"  — the axis across hosts (the network between machines: slow,
+            high-latency); only gradient psums should cross it
   "data"  — batch (graph-level) data parallelism; psum of gradients
   "graph" — partitioned-graph parallelism (vertices/edges of the padded
-            batch sharded across chips, halo exchange for boundaries);
-            must ride ICI, never DCN
+            batch sharded across cards, halo exchange for boundaries);
+            keep it inside one host, whose cards NVLink joins all to all
 
 Multi-host: call :func:`init_distributed` once per process, then build a
-host x chip mesh with :func:`make_hybrid_mesh` — DCN axes lead (slowest
-varying), ICI axes trail, so collectives over the trailing axes stay inside
-a slice.
+host x card mesh with :func:`make_hybrid_mesh` — host axes lead (slowest
+varying), per-host axes trail, so collectives over the trailing axes stay
+inside a host.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Initialize the multi-host runtime (wraps ``jax.distributed``).
 
     The reference is strictly single-process (SURVEY.md section 2.8: no
-    MPI/NCCL/Gloo anywhere); this is the TPU-native scale-out entry point.
+    MPI/NCCL/Gloo anywhere); this is the scale-out entry point.
     Arguments default to the standard JAX coordinator environment
     variables; on single-process launches (nothing configured) this is a
     no-op.  Returns the process count.  Idempotent.
@@ -82,37 +82,20 @@ def init_distributed(coordinator_address: Optional[str] = None,
     return jax.process_count()
 
 
-def make_hybrid_mesh(dcn_axes: dict, ici_axes: dict, devices=None) -> Mesh:
-    """Build a host x chip mesh with explicit DCN/ICI axis placement.
+def make_hybrid_mesh(host_axes: dict, card_axes: dict, devices=None) -> Mesh:
+    """Build a host x card mesh.
 
-    ``dcn_axes`` ({name: size}) vary across hosts/slices (slow network);
-    ``ici_axes`` vary within a slice (fast chip interconnect).  DCN axes
-    lead so that reshaping the process-major ``jax.devices()`` order puts
-    host boundaries exactly on the DCN axes: collectives over ICI axis
-    names never cross hosts.
-
-    On a real multi-slice TPU deployment the device order is refined with
-    ``mesh_utils.create_hybrid_device_mesh``; on single-process dryruns
-    (e.g. 8 virtual CPU devices standing in for 2 hosts x 4 chips) the
-    plain process-major reshape is used.
+    ``host_axes`` ({name: size}) vary across hosts (slow network);
+    ``card_axes`` vary within a host (NVLink between its cards).  Host axes
+    lead, so reshaping the process-major ``jax.devices()`` order puts host
+    boundaries exactly on them: collectives over the per-host axis names
+    never cross hosts.  Every card of a host reaches every other at the
+    same rate, so no finer device order is needed.
     """
-    names = tuple(dcn_axes.keys()) + tuple(ici_axes.keys())
-    dcn_shape = tuple(dcn_axes.values())
-    ici_shape = tuple(ici_axes.values())
-    n = int(np.prod(dcn_shape) * np.prod(ici_shape))
+    names = tuple(host_axes.keys()) + tuple(card_axes.keys())
+    shape = tuple(host_axes.values()) + tuple(card_axes.values())
+    n = int(np.prod(shape))
     if devices is None:
         devices = jax.devices()
     assert n <= len(devices), f"need {n} devices, have {len(devices)}"
-
-    if jax.process_count() > 1 and devices[0].platform == "tpu":
-        from jax.experimental import mesh_utils
-        # create_hybrid_device_mesh merges per-axis DCN x ICI factors; give
-        # DCN axes their own leading dimensions (ICI factor 1) and ICI axes
-        # theirs (DCN factor 1).
-        mesh_shape = (1,) * len(dcn_shape) + ici_shape
-        dcn_mesh_shape = dcn_shape + (1,) * len(ici_shape)
-        dev_array = mesh_utils.create_hybrid_device_mesh(
-            mesh_shape, dcn_mesh_shape, devices=devices)
-    else:
-        dev_array = np.asarray(devices[:n]).reshape(dcn_shape + ici_shape)
-    return Mesh(dev_array, names)
+    return Mesh(np.asarray(devices[:n]).reshape(shape), names)

@@ -1,12 +1,12 @@
 // Native host-side graph preprocessing for graphflow_tpu.
 //
-// TPU-native equivalent of the reference's per-example graph construction
+// The equivalent of the reference's per-example graph construction
 // (SMP_omega.h:358-582: Floyd-Warshall, Weisfeiler-Lehman histograms,
 // exchange-sort vertex ranking, receptive-field construction with capping,
 // permutation/pos index maps, reduced adjacency).  The reference runs this
 // C++ once per molecule per batch inside each model; here it is a
 // standalone shared library invoked from the input pipeline, emitting the
-// static-shaped index arrays the jitted TPU programs consume.
+// static-shaped index arrays the jitted device programs consume.
 //
 // Semantics are kept bit-identical to graphflow_tpu/core/prep.py (which is
 // itself pinned to the reference); tests/test_native_prep.py asserts parity.

@@ -1,6 +1,6 @@
 """Contraction-bank correctness tests.
 
-The TPU analog of the reference's kernel parity harness
+The analog of the reference's kernel parity harness
 (tests/test_RisiContraction_18_gpu.cu): the optimized einsum bank is checked
 against (a) an independent brute-force NumPy evaluator transcribed directly
 from the reference's case comments, (b) the generic case-table engine, plus

@@ -1,4 +1,4 @@
-"""Fused-layer and Pallas-kernel parity tests."""
+"""Fused bank + channel matmul parity tests (ops/fused.py)."""
 
 import numpy as np
 import pytest
@@ -61,86 +61,3 @@ class TestFused:
         np.testing.assert_allclose(
             np.asarray(z), np.where(np.asarray(raw) > 0, np.asarray(raw),
                                     0.01 * np.asarray(raw)), rtol=1e-6)
-
-
-class TestPallasKernel:
-    """The Pallas kernel runs in interpreter mode on CPU (compiled-mode
-    parity is exercised on real TPU by the bench/verify drives)."""
-
-    def test_interpret_mode_parity(self, rng):
-        from jax.experimental.pallas import tpu as pltpu
-        from graphflow_tpu.ops import risi_pallas
-        T, A, K = _inputs(rng, P=8, C=8, Co=8, B=2)
-        T, A, K = (x.astype(jnp.float32) for x in (T, A, K))
-        with pltpu.force_tpu_interpret_mode():
-            z = risi_pallas.risi18_matmul_pallas(T, A, K)
-        ref = jax.vmap(lambda t, a: risi18_matmul_fused(t, a, K))(T, A)
-        np.testing.assert_allclose(np.asarray(z), np.asarray(ref),
-                                   rtol=2e-4, atol=2e-4)
-
-    def test_custom_vjp_backward(self, rng):
-        from jax.experimental.pallas import tpu as pltpu
-        from graphflow_tpu.ops import risi_pallas
-        T, A, K = _inputs(rng, P=8, C=8, Co=8, B=2)
-        T, A, K = (x.astype(jnp.float32) for x in (T, A, K))
-
-        with pltpu.force_tpu_interpret_mode():
-            g = jax.grad(lambda t: jnp.sum(
-                risi_pallas.risi18_layer(t, A, K) ** 2))(T)
-        g_ref = jax.grad(lambda t: jnp.sum(
-            jax.vmap(lambda ti, ai: risi18_matmul_fused(ti, ai, K))(t, A)
-            ** 2))(T)
-        # f32 interpret-mode accumulation-order differences amplify through
-        # the squared-loss cotangent; compare with a scaled tolerance.
-        denom = np.abs(np.asarray(g_ref)).max()
-        rel = np.abs(np.asarray(g) - np.asarray(g_ref)).max() / denom
-        assert rel < 2e-3, rel
-
-
-class TestPallasBackwardKernel:
-    """The mirrored Pallas backward (risi18_matmul_pallas_bwd): dT and dK
-    in one pass, interpret mode on CPU (on-chip parity via bench/verify)."""
-
-    def test_bwd_kernel_parity(self, rng):
-        from jax.experimental.pallas import tpu as pltpu
-        from graphflow_tpu.ops import risi_pallas
-        T, A, K = _inputs(rng, P=8, C=8, Co=8, B=2)
-        T, A, K = (x.astype(jnp.float32) for x in (T, A, K))
-        A = A - float(np.median(np.asarray(A)))  # exercise the adj>0 guard
-        g = jnp.asarray(rng.standard_normal((2, 8, 8, 8)), jnp.float32)
-
-        def ref(t, k):
-            return jax.vmap(lambda ti, ai: risi18_matmul_fused(ti, ai, k))(
-                t, A)
-
-        _, vjp = jax.vjp(ref, T, K)
-        dT_ref, dK_ref = vjp(g)
-        with pltpu.force_tpu_interpret_mode():
-            dT, dK = risi_pallas.risi18_matmul_pallas_bwd(T, A, K, g)
-        np.testing.assert_allclose(np.asarray(dT), np.asarray(dT_ref),
-                                   rtol=1e-4, atol=1e-4)
-        np.testing.assert_allclose(np.asarray(dK), np.asarray(dK_ref),
-                                   rtol=1e-4, atol=1e-4)
-
-    def test_bank_train_grad(self, rng):
-        """risi18_bank_train's custom_vjp == autodiff of the XLA fusion."""
-        from jax.experimental.pallas import tpu as pltpu
-        from graphflow_tpu.ops import risi_pallas
-        T, A, K = _inputs(rng, P=8, C=8, Co=8, B=2)
-        T, A, K = (x.astype(jnp.float32) for x in (T, A, K))
-
-        with pltpu.force_tpu_interpret_mode():
-            gT, gK = jax.grad(
-                lambda t, k: jnp.sum(
-                    risi_pallas.risi18_bank_train(t, A, k) ** 2),
-                argnums=(0, 1))(T, K)
-        gT_ref, gK_ref = jax.grad(
-            lambda t, k: jnp.sum(jax.vmap(
-                lambda ti, ai: risi18_matmul_fused(ti, ai, k))(t, A) ** 2),
-            argnums=(0, 1))(T, K)
-        # Squared-loss cotangents amplify f32 accumulation-order noise;
-        # compare max-norm relative (as test_custom_vjp_backward).
-        for got, want in ((gT, gT_ref), (gK, gK_ref)):
-            denom = np.abs(np.asarray(want)).max()
-            rel = np.abs(np.asarray(got) - np.asarray(want)).max() / denom
-            assert rel < 2e-3, rel

@@ -127,8 +127,8 @@ def test_sequence_save_load(tmp_path):
 
 
 def test_inspect_dumps_cover_smp1d_and_gcn():
-    """ForDebugging-style dumps exist beyond the flagship (VERDICT r3
-    item 10 / r4 component 42): shapes match the tower schedule."""
+    """ForDebugging-style dumps exist beyond the flagship: shapes match
+    the tower schedule."""
     import numpy as np
     from graphflow_tpu.core.graph import DenseGraph
     from graphflow_tpu.models.smp1d import SMP_theta, smp1d_inspect

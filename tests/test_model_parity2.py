@@ -1,4 +1,4 @@
-"""Binary activation parity, part 2 (VERDICT r3 item 4): GCN_1D,
+"""Binary activation parity, part 2: GCN_1D,
 GRU_GCN_1D, NeuralFingerprint, and SMP_omega_pairgraphs against the
 compiled reference headers.
 

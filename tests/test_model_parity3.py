@@ -1,4 +1,4 @@
-"""Binary activation parity, part 3 (VERDICT r4 items 1-2): CCN_1D, the
+"""Binary activation parity, part 3: CCN_1D, the
 steerable leftovers (SMP_2D_ver2/ver5, Unrestricted_SMP_2D(+ver2)), SMP_1D,
 LCNN, GCA_1D, the physics/Coulomb input path and the sorted-distance
 GCN_*_Distance channel — pinned against the compiled reference binary.

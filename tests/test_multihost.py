@@ -1,4 +1,4 @@
-"""Multi-host scaffolding dryrun: a 2 (host/DCN) x 4 (chip/ICI) hybrid mesh
+"""Multi-host scaffolding dryrun: a 2 (host) x 4 (card) hybrid mesh
 on virtual CPU devices.  The reference has no distributed backend at all
 (SURVEY.md section 2.8); these tests pin the mesh construction, collective
 axis placement, and a DP train step psumming over BOTH axes.
@@ -31,14 +31,14 @@ def test_hybrid_mesh_shape_and_axis_order():
                                      devices=jax.devices("cpu"))
     assert mesh.axis_names == ("host", "data")
     assert mesh.devices.shape == (2, 4)
-    # process-major reshape: chips of one "host" are contiguous, so the
-    # ICI axis ("data") never crosses a host boundary
+    # process-major reshape: cards of one "host" are contiguous, so the
+    # per-host axis ("data") never crosses a host boundary
     flat = np.asarray(jax.devices("cpu")[:8]).reshape(2, 4)
     assert (mesh.devices == flat).all()
 
 
 def test_hybrid_mesh_collectives():
-    """psum over the ICI axis stays within a host row; over both axes it is
+    """psum over the per-host axis stays within a host row; over both axes it is
     the global sum."""
     mesh = parallel.make_hybrid_mesh({"host": 2}, {"data": 4},
                                      devices=jax.devices("cpu"))
@@ -60,11 +60,10 @@ def test_hybrid_mesh_collectives():
 
 
 def test_dp_train_step_on_hybrid_mesh():
-    """The DP train step psums gradients over host AND chip axes; its loss
+    """The DP train step psums gradients over host AND card axes; its loss
     must equal the single-device batch loss."""
     model = SMP_omega(max_nVertices=8, max_receptive_field=3, nLevels=1,
                       nChanels=4, nFeatures=4, nDepth=2, seed=0)
-    model.cfg.use_fused_kernel = False
     mesh = parallel.make_hybrid_mesh({"host": 2}, {"data": 4},
                                      devices=jax.devices("cpu"))
     step = parallel.make_dp_train_step(model._loss, model.opt, mesh,
@@ -79,47 +78,24 @@ def test_dp_train_step_on_hybrid_mesh():
     np.testing.assert_allclose(float(loss), loss_single, rtol=1e-5)
 
 
-def test_hybrid_mesh_real_tpu_branch_mocked(monkeypatch):
-    """Exercise make_hybrid_mesh's create_hybrid_device_mesh branch (dead
-    code on this single-process host — VERDICT r3 weak point 7) with a
-    mocked multi-process TPU environment; the stub returns real CPU
-    devices so the resulting Mesh is fully usable."""
-    import numpy as np
-    import jax
-    from jax.experimental import mesh_utils
+def test_hybrid_mesh_multiprocess_gpu_host_mocked(monkeypatch):
+    """With several processes (2 hosts x 4 GPUs), the process-major device
+    order reshapes straight into the host x card mesh: each host's cards
+    form one row, so collectives over the per-host axis stay on NVLink.
+    The process count is mocked; the devices are the virtual CPU ones."""
     from graphflow_tpu.parallel import mesh as mesh_lib
 
-    cpus = jax.devices("cpu")
-    calls = {}
-
-    def fake_create(mesh_shape, dcn_mesh_shape, devices=None):
-        calls["mesh_shape"] = tuple(mesh_shape)
-        calls["dcn_mesh_shape"] = tuple(dcn_mesh_shape)
-        calls["n_devices"] = len(devices)
-        shape = tuple(int(a * b) for a, b in zip(mesh_shape, dcn_mesh_shape))
-        n = int(np.prod(shape))
-        return np.asarray(cpus[:n]).reshape(shape)
-
-    class FakeTpuDevice:
-        platform = "tpu"
-
     monkeypatch.setattr(jax, "process_count", lambda: 2)
-    monkeypatch.setattr(mesh_utils, "create_hybrid_device_mesh", fake_create)
-
-    m = mesh_lib.make_hybrid_mesh({"host": 2}, {"data": 4},
-                                  devices=[FakeTpuDevice()] * 8)
-    # DCN axes get their own leading dims (ICI factor 1) and vice versa
-    assert calls["mesh_shape"] == (1, 4)
-    assert calls["dcn_mesh_shape"] == (2, 1)
+    cpus = jax.devices("cpu")[:8]
+    m = mesh_lib.make_hybrid_mesh({"host": 2}, {"data": 4}, devices=cpus)
     assert m.shape == {"host": 2, "data": 4}
-    # the mesh is real: run a psum over both axes
-    import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
+    assert [d.id for d in m.devices[1]] == [d.id for d in cpus[4:8]]
 
     def f(x):
-        return jax.lax.psum(x, ("host", "data"))
+        return jax.lax.psum(x, "data"), jax.lax.psum(x, ("host", "data"))
 
-    out = shard_map(f, mesh=m, in_specs=P("host"), out_specs=P("host"),
-                    check_vma=False)(jnp.arange(8.0))
-    assert float(out.sum()) == float(jnp.arange(8.0).sum()) * 8
+    row, both = shard_map(f, mesh=m, in_specs=P(("host", "data")),
+                          out_specs=(P(("host", "data")),
+                                     P(("host", "data"))))(jnp.arange(8.0))
+    np.testing.assert_allclose(np.asarray(row), [6] * 4 + [22] * 4)
+    np.testing.assert_allclose(np.asarray(both), [28] * 8)

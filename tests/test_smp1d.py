@@ -121,7 +121,7 @@ def test_save_load_roundtrip(tmp_path, molecules):
 
 def test_sparse_aggregation_matches_dense():
     """SMP1DConfig.sparse_max_degree routes the 1-hop sum through the ELL
-    flat-gather (VERDICT r4 item 8); every level state must equal the
+    flat-gather; every level state must equal the
     id-space one-hot-matmul path exactly (same sums, f32 accumulation)."""
     import dataclasses
     import numpy as np

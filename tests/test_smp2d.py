@@ -148,8 +148,8 @@ def test_smp_batch_padding_consistency(molecules):
 
 
 def test_bfloat16_training(molecules):
-    """bfloat16 state/params: 1.68x measured layer speedup on TPU; training
-    must still converge on the toy set."""
+    """bfloat16 state/params: training must still converge on the toy
+    set."""
     graphs, targets = molecules
     cfg = SMP2DConfig(max_nVertices=10, max_receptive_field=4, nLevels=2,
                       nChanels=8, nFeatures=4, nDepth=3, dtype="bfloat16")

@@ -1,77 +1,57 @@
-"""On-chip timing of the contraction-bank family (VERDICT r3 item 5).
+"""Timing of the contraction-bank family on the GPU.
 
-Measures, at production shapes (V=256 neighborhoods, P=16, C=32):
+Measures, at production shapes (V=256 vertex neighborhoods, P=16, C=32):
   * bank-only (from materialized T): 4 / 10 / 18 / 50 cases + K matmul,
-    via the shared-reduction XLA banks (the 18-case row also shows the
-    Pallas v2 bank for reference);
+    via the shared-reduction XLA banks;
   * the FULL level step (gather + bank + K) for contraction 50 (the
-    SMP_2D_ver7 level) vs contraction 18 (the ver8/omega level, fused
-    v3 Pallas on TPU).
+    SMP_2D_ver7 level) vs contraction 18 (the ver8/omega level) and
+    contraction 10 (ver6).
 
-The acceptance metric is per-case-FLOP: ms_50 / 50 vs ms_18 / 18.
+The comparison is per case: ms_50 / 50 vs ms_18 / 18.  Times are warm
+medians of calls that end in block_until_ready (bench.py's method).
 
 Usage: python tools/bench_banks.py [V] [P] [C]
 """
 
+import os
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
 
-def chain_time(make_chain, args, chain_len=9, reps=5):
-    r1, rk = make_chain(1), make_chain(chain_len)
-    float(r1(*args)); float(rk(*args))
-
-    def best(f):
-        ts = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            float(f(*args))
-            ts.append(time.perf_counter() - t0)
-        return min(ts)
-
-    t1, tk = best(r1), best(rk)
-    return max((tk - t1) / (chain_len - 1), 1e-9)
+from bench import warm_median  # noqa: E402
 
 
-def bank_time(bank_fn, nCon, B, P, C, takes_adj=True, chain_len=17):
+def bank_time(bank_fn, nCon, B, P, C, takes_adj=True):
     rng = np.random.RandomState(0)
     T = jnp.asarray(rng.randn(B, P, P, P, C), jnp.float32)
     A = jnp.abs(jnp.asarray(rng.randn(B, P, P), jnp.float32))
     K = jnp.asarray(rng.randn(nCon * C, C) * 0.1, jnp.float32)
 
-    def chain(k):
-        @jax.jit
-        def run(T, A, K):
-            def body(Ac, _):
-                Y = (jax.vmap(bank_fn)(T, Ac) if takes_adj
-                     else jax.vmap(bank_fn)(T))
-                Z = (Y.reshape(B * P * P, nCon * C) @ K)
-                Ac = Ac * (1.0 + 0.0 * Z.mean())
-                return Ac, Z.mean()
-            _, zs = jax.lax.scan(body, A, None, length=k)
-            return zs.sum()
-        return run
+    @jax.jit
+    def run(T, A, K):
+        Y = jax.vmap(bank_fn)(T, A) if takes_adj else jax.vmap(bank_fn)(T)
+        return Y.reshape(B * P * P, nCon * C) @ K
 
-    return chain_time(chain, (T, A, K), chain_len)
+    return warm_median(run, T, A, K)
 
 
-def level_time(contraction, V, P, C, chain_len=9):
+def level_time(contraction, V, P, C):
     from graphflow_tpu.models.smp2d import SMP2DConfig, smp2d_states
-    from graphflow_tpu.core import batching
 
     rng = np.random.RandomState(0)
     cfg = SMP2DConfig(max_nVertices=V, max_receptive_field=P, nLevels=1,
                       nChanels=C, nFeatures=4, nDepth=2,
                       contraction=contraction)
-    nCon = {4: 4, 10: 10, 18: 18, 50: 50}[contraction]
     params = {
         "H": jnp.asarray(rng.randn(C, cfg.feat_dim) * 0.1, jnp.float32),
         "levels": [{
-            "K": jnp.asarray(rng.randn(nCon * C, C) * 0.1, jnp.float32),
+            "K": jnp.asarray(rng.randn(contraction * C, C) * 0.1,
+                             jnp.float32),
             "b": jnp.zeros((C,), jnp.float32)}],
         "W": jnp.asarray(rng.randn(C), jnp.float32),
     }
@@ -84,25 +64,12 @@ def level_time(contraction, V, P, C, chain_len=9):
         "radj": jnp.abs(jnp.asarray(rng.randn(1, V, P, P), jnp.float32)),
         "smask": jnp.ones((2, V, P, P), jnp.float32),
     }
-
-    def chain(k):
-        @jax.jit
-        def run(params, wl):
-            def body(w, _):
-                gg = dict(g); gg["wl_feat"] = w
-                states = smp2d_states(params, gg, cfg)
-                out = states[-1].astype(jnp.float32).mean()
-                return w * (1.0 + 0.0 * out), out
-            _, zs = jax.lax.scan(body, wl, None, length=k)
-            return zs.sum()
-        return run
-
-    return chain_time(chain, (params, g["wl_feat"]), chain_len)
+    run = jax.jit(lambda params, g: smp2d_states(params, g, cfg)[-1])
+    return warm_median(run, params, g)
 
 
 def main():
     from graphflow_tpu.ops import contractions as ct
-    from graphflow_tpu.ops.risi_pallas import risi18_matmul_pallas
 
     V = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     P = int(sys.argv[2]) if len(sys.argv) > 2 else 16

@@ -1,5 +1,5 @@
 // Baseline measurement harness: times the REFERENCE GraphFlow CPU kernels on
-// the same workload bench.py runs on TPU, producing the vs_baseline number.
+// the contraction-bank workload (B vertex neighbourhoods, P, C).
 //
 // This file is original harness code that #includes the read-only reference
 // headers (it is a measurement of the reference, not part of the framework).

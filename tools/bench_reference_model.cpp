@@ -1,6 +1,6 @@
 // Whole-model baseline: times the REFERENCE SMP_omega (CPU, double) on one
 // BatchLearn over a batch of random molecules plus per-molecule Predict,
-// matching tools/bench_model.py's TPU-side workload.
+// matching tools/bench_model.py's workload.
 //
 // This file is original harness code that #includes the read-only reference
 // headers (a measurement of the reference, not part of the framework).

@@ -1,4 +1,4 @@
-"""On-chip A/B harness for ELLPACK SpMM formulations (VERDICT r3 item 3).
+"""A/B harness for ELLPACK SpMM formulations.
 
 The workload is BENCH's north-star shape: V=8192, D=16, H=64, random
 neighbor ids — out[v] = sum_d w[v,d] * h[nbr[v,d]].  Roofline: ~36.5 MB

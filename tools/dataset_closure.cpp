@@ -1,4 +1,4 @@
-// Dataset-scale closure run (VERDICT r4 item 6 / SURVEY §7 step 9 /
+// Dataset-scale closure run (SURVEY §7 step 9 /
 // BASELINE.md "matching downstream accuracy"): train the REFERENCE
 // SMP_omega / GCN_1D on a deterministic ~100-molecule set from IDENTICAL
 // initial weights as the graphflow_tpu run (tools/dataset_closure.py) and

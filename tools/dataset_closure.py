@@ -1,12 +1,12 @@
-"""Dataset-scale closure (VERDICT r4 item 6): train SMP_omega and GCN_1D
-on ~100 deterministic molecules in BOTH frameworks from IDENTICAL initial
-weights, and record the per-iteration loss curves, held-out MAE and wall
-times in DATASET_r05.json.
+"""Dataset-scale closure: train SMP_omega and GCN_1D on ~100 deterministic
+molecules in BOTH frameworks from IDENTICAL initial weights, and record the
+per-iteration loss curves, held-out MAE and wall times as one JSON
+object on stdout.
 
 The reference side is tools/dataset_closure.cpp (compiled against the
 read-only headers); molecules/targets come from one shared LCG stream so
-the two runs see byte-identical data.  Our side runs float32 on the real
-TPU; the reference runs float64 serial CPU — the comparison is loss-curve
+the two runs see byte-identical data.  Our side runs float32 on the
+default accelerator; the reference runs float64 serial CPU — the comparison is loss-curve
 TRACKING (few-percent gap), not bit parity (that is what the parity
 harness pins).
 
@@ -165,7 +165,7 @@ def closure_gcn1d(cfgv, mols, targets, nTrain, nTest, iters, lr, seed):
 def run_f64_leg(kind):
     """Subprocess mode: OUR framework in float64 on CPU, same data + the
     SAME weights file the reference loads — the semantics leg.  If this
-    tracks the reference at ~1e-6, any f32-TPU gap is precision, not
+    tracks the reference at ~1e-6, any f32 accelerator gap is precision, not
     semantics."""
     import jax
     jax.config.update("jax_enable_x64", True)
@@ -265,7 +265,7 @@ def main():
                      "gcn1d": "V=14 R=2 L=2 H=12 nDepth=3 Momentum "
                               "lr=5e-4"},
         "note": "identical molecules/targets/init weights both sides; "
-                "ours = float32 TPU, reference = float64 serial CPU "
+                "ours = float32 on the default accelerator, reference = float64 serial CPU "
                 "(tools/dataset_closure.cpp); tracking comparison, "
                 "bit parity lives in the parity harness",
         "SMP_omega": omega,
@@ -276,10 +276,7 @@ def main():
             "SMP_omega": round(100 * semantic_gap(omega), 5),
             "GCN_1D": round(100 * semantic_gap(gcn), 5)},
     }
-    path = os.path.join(REPO, "DATASET_r05.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
-    print(f"[closure] wrote {path}")
+    print(json.dumps(out, indent=1))
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 // molecule with weights LOADED FROM FILE, runs complete_computation_graph +
 // forward, and dumps every per-level vertex state, the vertex features, the
 // graph feature, and the prediction.  tests/test_model_parity.py rebuilds
-// the identical molecule + weights on the TPU framework and compares all
+// the identical molecule + weights in this framework and compares all
 // activations element-wise.
 //
 // This file is original harness code that #includes the read-only reference

@@ -1,7 +1,6 @@
 // WHOLE-MODEL ground-truth dumps, part 2 (round 4): GCN_1D, GRU_GCN_1D,
 // NeuralFingerprint and SMP_omega_pairgraphs — the remaining flagship
-// families the judge asked to pin against the ACTUAL reference binary
-// (VERDICT r3 item 4).  Same pattern as tools/parity_model_reference.cpp:
+// families pinned against the ACTUAL reference binary.  Same pattern as tools/parity_model_reference.cpp:
 // deterministic molecule from a shared LCG, weights LOADED FROM FILE in the
 // model's registration order, one forward(), dump every intermediate.
 //

@@ -1,5 +1,5 @@
-// WHOLE-MODEL ground-truth dumps, part 3 (round 5): the families VERDICT r4
-// items 1-2 asked to pin against the compiled reference binary — CCN_1D,
+// WHOLE-MODEL ground-truth dumps, part 3 (round 5): the families pinned
+// against the compiled reference binary — CCN_1D,
 // the steerable leftovers (SMP_2D_ver2/ver5, Unrestricted_SMP_2D(+ver2)),
 // SMP_1D, LCNN, GCA_1D, the physics/Coulomb input path and the
 // GCN_*_Distance channel.  Same pattern as tools/parity_model_reference2.cpp:

@@ -1,5 +1,5 @@
 // Ground-truth dump harness: runs the REFERENCE GraphFlow kernels on
-// deterministic inputs and prints the outputs, so the TPU framework's
+// deterministic inputs and prints the outputs, so this framework's
 // kernels can be compared against the actual reference binary (not a
 // re-implementation of it).  Original harness code; #includes the read-only
 // reference headers.

@@ -1,4 +1,4 @@
-"""Record the round's scaling/communication artifact (VERDICT r3 item 7).
+"""Record the scaling/communication artifact.
 
 Produces SCALING_r{N}.json at the repo root with:
   * the partitioned-graph per-level halo-exchange volume table
